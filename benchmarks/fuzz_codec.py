@@ -129,7 +129,7 @@ def _make_valid(rng, fmt: str) -> bytes:
     if fmt == "heic":          # libheif encode (Pillow has no HEIF writer)
         import tempfile
 
-        from imagestitching_tpu.imgio import heif
+        from imagestitching.imgio import heif
         with tempfile.TemporaryDirectory() as d:
             p = os.path.join(d, "x.heic")
             heif.encode_to_file(p, arr, quality=int(rng.integers(20, 95)))
@@ -188,7 +188,7 @@ def _case_bytes(seed: int):
     rng = np.random.default_rng(seed)
     fmt = _FORMATS[int(rng.integers(0, len(_FORMATS)))]
     if fmt == "heic":
-        from imagestitching_tpu.imgio import heif
+        from imagestitching.imgio import heif
         if not heif.available():
             fmt = "png"        # deterministic stand-in off this host
     data = _make_valid(rng, fmt)
@@ -204,7 +204,7 @@ def _case_bytes(seed: int):
 
 
 def _run_case(seed: int) -> None:
-    from imagestitching_tpu.imgio import heif, native
+    from imagestitching.imgio import heif, native
 
     fmt, data = _case_bytes(seed)
     if fmt == "heic":
@@ -270,7 +270,7 @@ def _child(seed0: int, count: int) -> int:
 
 
 def _parent(n: int, base: int) -> int:
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
     if not native.available():
         print("native codec unavailable — nothing to fuzz")
         return 1

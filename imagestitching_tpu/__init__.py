@@ -1,47 +1,57 @@
-"""imagestitching_tpu — a TPU-native image stitching framework.
+"""Former name of the :mod:`imagestitching` package, kept as an import alias.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the reference
-WeChat mini-program Iamctb/ImageStitching ("优雅拼图"): EXIF-aware decode,
-bilinear resize to a common edge, and vertical/horizontal concatenation with
-configurable gaps into one output strip — rebuilt as a production framework:
-
-* pure-functional layout solver with the reference's exact rounding schedule,
-* a fused Pallas resize-and-place kernel (separable filters as MXU matmuls),
-* an HBM-budget tiler replacing the app's canvas caps / big-task mode,
-* host codec pool with decode→stage double-buffering,
-* vmapped batch serving and mesh-sharded multi-chip execution,
-* a NumPy Canvas-2D golden model anchoring bit-level parity tests.
+``import <this package>.X`` yields the module ``imagestitching.X`` itself —
+one module object under two names, so classes and exceptions compare equal
+whichever name imported them — and ``python -m <this package>.cli`` runs
+``imagestitching.cli``.  New code imports ``imagestitching``.
 """
 
-from .config import (CanvasLimits, MemoryBudget, RuntimeConfig, StitchOptions,
-                     DIRECTIONS, MODES, SUPPORTED_TYPES)
-from .core import ImageSpec, LayoutPlan, Placement, solve
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-__version__ = "0.1.0"
+import imagestitching as _target
 
-__all__ = [
-    "CanvasLimits", "MemoryBudget", "RuntimeConfig", "StitchOptions",
-    "DIRECTIONS", "MODES", "SUPPORTED_TYPES",
-    "ImageSpec", "LayoutPlan", "Placement", "solve",
-    "stitch", "stitch_arrays", "stitch_to_file", "stitch_grid",
-]
+_PREFIX = __name__ + "."
 
 
-def __getattr__(name):  # lazy: keep `import imagestitching_tpu` JAX-free
-    if name in ("stitch", "stitch_arrays", "stitch_to_file", "stitch_grid",
-                "make_preview", "preview_size", "prepare"):
-        from . import api
-        return getattr(api, name)
-    if name == "StitchServer":
-        from .serve.server import StitchServer
-        return StitchServer
-    if name == "StitchHTTPServer":
-        from .serve.http import StitchHTTPServer
-        return StitchHTTPServer
-    if name == "ArtifactStore":
-        from .runtime.artifacts import ArtifactStore
-        return ArtifactStore
-    if name == "StitchMetrics":
-        from .runtime.pipeline import StitchMetrics
-        return StitchMetrics
-    raise AttributeError(name)
+def _real_name(fullname: str) -> str:
+    return _target.__name__ + "." + fullname[len(_PREFIX):]
+
+
+class _AliasFinder(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Resolves every submodule of this package to the renamed module."""
+
+    def find_spec(self, fullname, path=None, target=None):
+        if not fullname.startswith(_PREFIX):
+            return None
+        real = importlib.util.find_spec(_real_name(fullname))
+        if real is None:
+            return None
+        return importlib.util.spec_from_loader(
+            fullname, self,
+            is_package=real.submodule_search_locations is not None)
+
+    def create_module(self, spec):
+        return None
+
+    def exec_module(self, module):
+        # the import system returns whatever sys.modules holds afterwards
+        sys.modules[module.__name__] = importlib.import_module(
+            _real_name(module.__name__))
+
+    def get_code(self, fullname):          # for ``python -m``
+        real = importlib.util.find_spec(_real_name(fullname))
+        return real.loader.get_code(real.name)
+
+
+if not any(isinstance(f, _AliasFinder) for f in sys.meta_path):
+    sys.meta_path.insert(0, _AliasFinder())
+
+__all__ = _target.__all__
+__version__ = _target.__version__
+
+
+def __getattr__(name):
+    return getattr(_target, name)

@@ -1,7 +1,7 @@
-// Native host codec for imagestitching_tpu: libjpeg-turbo + libpng/zlib
+// Native host codec for imagestitching: libjpeg-turbo + libpng/zlib
 // (+ optional libdeflate fast paths and libwebp decode).
 //
-// TPU-native replacement for the image decode/encode the reference delegates
+// Native replacement for the image decode/encode the reference delegates
 // to the WeChat runtime's C++ engine (SURVEY.md §2b): decode fires on
 // `img.src = path` (utils/canvas.js:110) and PNG export on
 // `wx.canvasToTempFilePath` (utils/canvas.js:205-242).  Here the same work is

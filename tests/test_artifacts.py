@@ -7,9 +7,9 @@ import time
 import numpy as np
 from PIL import Image
 
-from imagestitching_tpu import api
-from imagestitching_tpu.config import MemoryBudget, RuntimeConfig
-from imagestitching_tpu.runtime.artifacts import ArtifactStore
+from imagestitching import api
+from imagestitching.config import MemoryBudget, RuntimeConfig
+from imagestitching.runtime.artifacts import ArtifactStore
 
 rng = np.random.default_rng(31)
 
@@ -71,7 +71,7 @@ def test_load_one_uses_store(tmp_path, monkeypatch):
         host_cache_pixels=0, host_cache_entries=0))  # disable RAM cache
 
     calls = {"n": 0}
-    from imagestitching_tpu.imgio import codec
+    from imagestitching.imgio import codec
     real = codec.decode
 
     def counting(src, **kw):

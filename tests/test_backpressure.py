@@ -15,7 +15,7 @@ import weakref
 import numpy as np
 import pytest
 
-from imagestitching_tpu.runtime import decoding
+from imagestitching.runtime import decoding
 
 
 class _LiveTracker:
@@ -173,11 +173,11 @@ def test_pool_close_then_iterate_raises_stopiteration():
 def test_stream_blit_peak_residency_bounded(tmp_path):
     """A tall vertical strip streams with peak decoded sources ~= window,
     not O(n) — the property that replaced api._BLIT_MAX_SRC_BYTES."""
-    from imagestitching_tpu.config import StitchOptions
-    from imagestitching_tpu.core import geometry
-    from imagestitching_tpu.core.layout import ImageSpec, solve
-    from imagestitching_tpu.imgio import codec, native
-    from imagestitching_tpu.runtime import export
+    from imagestitching.config import StitchOptions
+    from imagestitching.core import geometry
+    from imagestitching.core.layout import ImageSpec, solve
+    from imagestitching.imgio import codec, native
+    from imagestitching.runtime import export
 
     if not native.available():
         pytest.skip("native codec unavailable")
@@ -213,10 +213,10 @@ def test_stream_blit_peak_residency_bounded(tmp_path):
 def test_blit_routing_has_no_total_bytes_cap():
     """Jobs whose total source bytes exceed the old 4 GB cap now route to
     the streamed blit path (the window bounds RAM instead)."""
-    from imagestitching_tpu import api
-    from imagestitching_tpu.config import (CanvasLimits, RuntimeConfig,
+    from imagestitching import api
+    from imagestitching.config import (CanvasLimits, RuntimeConfig,
                                            StitchOptions)
-    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching.core.layout import ImageSpec, solve
 
     assert not hasattr(api, "_BLIT_MAX_SRC_BYTES")
     n, w, h = 200, 4000, 3000       # 200 x 36 MB = 7.2 GB raw, was rejected
@@ -231,11 +231,11 @@ def test_blit_routing_has_no_total_bytes_cap():
 
 
 def test_stream_blit_decode_error_still_aborts(tmp_path):
-    from imagestitching_tpu.config import StitchOptions
-    from imagestitching_tpu.core import geometry
-    from imagestitching_tpu.core.layout import ImageSpec, solve
-    from imagestitching_tpu.imgio import native
-    from imagestitching_tpu.runtime import export
+    from imagestitching.config import StitchOptions
+    from imagestitching.core import geometry
+    from imagestitching.core.layout import ImageSpec, solve
+    from imagestitching.imgio import native
+    from imagestitching.runtime import export
 
     if not native.available():
         pytest.skip("native codec unavailable")
@@ -265,7 +265,7 @@ def test_abandoned_pool_freed_by_refcount_alone():
     import time
     import weakref
 
-    from imagestitching_tpu.runtime import decoding
+    from imagestitching.runtime import decoding
 
     gate = threading.Event()
 

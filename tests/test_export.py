@@ -12,10 +12,10 @@ import os
 import numpy as np
 import pytest
 
-from imagestitching_tpu import api
-from imagestitching_tpu.config import MemoryBudget, RuntimeConfig
-from imagestitching_tpu.imgio import codec, native
-from imagestitching_tpu.runtime import export
+from imagestitching import api
+from imagestitching.config import MemoryBudget, RuntimeConfig
+from imagestitching.imgio import codec, native
+from imagestitching.runtime import export
 
 needs_native = pytest.mark.skipif(not native.available(),
                                   reason="native codec unavailable")
@@ -180,9 +180,9 @@ def test_stitch_to_file_stream_overlapped_big_task(tmp_path):
                               return_metrics=True)
     assert m.strategy.startswith("overlapped")
     got, _ = codec.decode(open(p, "rb").read())
-    from imagestitching_tpu.config import StitchOptions
-    from imagestitching_tpu.core import oracle
-    from imagestitching_tpu.core.layout import ImageSpec, solve
+    from imagestitching.config import StitchOptions
+    from imagestitching.core import oracle
+    from imagestitching.core.layout import ImageSpec, solve
     plan = solve([ImageSpec(a.shape[1], a.shape[0]) for a in imgs * 3],
                  StitchOptions(gap=2))
     want = oracle.stitch(plan, imgs * 3)
@@ -298,8 +298,8 @@ def test_stitch_to_file_grayscale_falls_back(tmp_path):
 # ------------------------------------------------------- pure-blit export
 
 def _oracle_file_check(paths_or_items, out_png, specs, opts, atol=0):
-    from imagestitching_tpu.core import oracle
-    from imagestitching_tpu.core.layout import solve
+    from imagestitching.core import oracle
+    from imagestitching.core.layout import solve
     plan = solve(specs, opts)
     imgs = []
     for it in paths_or_items:
@@ -318,8 +318,8 @@ def _oracle_file_check(paths_or_items, out_png, specs, opts, atol=0):
 @needs_native
 def test_blit_stream_equal_sizes_vertical(tmp_path):
     """Equal-size concat takes the zero-device-round-trip path, bit-exact."""
-    from imagestitching_tpu.config import StitchOptions
-    from imagestitching_tpu.core.layout import ImageSpec
+    from imagestitching.config import StitchOptions
+    from imagestitching.core.layout import ImageSpec
     imgs = [rng.integers(0, 256, (120, 200, 3), np.uint8) for _ in range(4)]
     paths = [codec.encode(str(tmp_path / f"{i}.png"), a)
              for i, a in enumerate(imgs)]
@@ -335,8 +335,8 @@ def test_blit_stream_equal_sizes_vertical(tmp_path):
 def test_blit_stream_original_mode_offsets_background(tmp_path):
     """mode=original centers narrower images: col offsets + background
     margins, still a pure blit."""
-    from imagestitching_tpu.config import StitchOptions
-    from imagestitching_tpu.core.layout import ImageSpec
+    from imagestitching.config import StitchOptions
+    from imagestitching.core.layout import ImageSpec
     imgs = [rng.integers(0, 256, (60, 200, 3), np.uint8),
             rng.integers(0, 256, (80, 120, 3), np.uint8)]
     paths = [codec.encode(str(tmp_path / f"{i}.png"), a)
@@ -354,8 +354,8 @@ def test_blit_stream_original_mode_offsets_background(tmp_path):
 def test_blit_stream_exif_orientation(tmp_path):
     """EXIF-rotated equal-display-size images still blit (orient_array on
     host), matching the oracle exactly."""
-    from imagestitching_tpu.config import StitchOptions
-    from imagestitching_tpu.core.layout import ImageSpec
+    from imagestitching.config import StitchOptions
+    from imagestitching.core.layout import ImageSpec
     a = rng.integers(0, 256, (90, 140, 3), np.uint8)   # displays as 90x140
     b = rng.integers(0, 256, (140, 90, 3), np.uint8)   # rot90 -> 90x140
     items = [(a, 1), (b, 6)]
@@ -369,8 +369,8 @@ def test_blit_stream_exif_orientation(tmp_path):
 
 @needs_native
 def test_blit_stream_horizontal(tmp_path):
-    from imagestitching_tpu.config import StitchOptions
-    from imagestitching_tpu.core.layout import ImageSpec
+    from imagestitching.config import StitchOptions
+    from imagestitching.core.layout import ImageSpec
     imgs = [rng.integers(0, 256, (150, 90, 3), np.uint8) for _ in range(3)]
     paths = [codec.encode(str(tmp_path / f"{i}.png"), a)
              for i, a in enumerate(imgs)]

@@ -5,9 +5,9 @@ import numpy as np
 import pytest
 from PIL import Image
 
-import imagestitching_tpu as ist
-from imagestitching_tpu.config import RuntimeConfig
-from imagestitching_tpu.imgio import codec
+import imagestitching as ist
+from imagestitching.config import RuntimeConfig
+from imagestitching.imgio import codec
 
 rng = np.random.default_rng(44)
 
@@ -78,7 +78,7 @@ def test_16bit_png(tmp_path, monkeypatch):
     dec, _ = codec.decode(p)            # native fast path (if built)
     assert dec.dtype == np.uint8 and dec.shape == (6, 6, 3)
     np.testing.assert_array_equal(dec[..., 0], want)
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
     monkeypatch.setattr(native, "available", lambda: False)
     dec2, _ = codec.decode(p)           # Pillow fallback rung
     np.testing.assert_array_equal(dec2, dec)
@@ -151,9 +151,9 @@ def test_salvage_composites_alpha(tmp_path):
 
 
 def test_pipeline_profile_flag(tmp_path, monkeypatch):
-    from imagestitching_tpu.core.layout import ImageSpec, solve
-    from imagestitching_tpu.config import StitchOptions
-    from imagestitching_tpu.runtime import pipeline
+    from imagestitching.core.layout import ImageSpec, solve
+    from imagestitching.config import StitchOptions
+    from imagestitching.runtime import pipeline
     monkeypatch.setenv("IMAGESTITCH_TRACE_DIR", str(tmp_path / "trace"))
     plan = solve([ImageSpec(16, 16)], StitchOptions(supersample=False))
     imgs = [arr(16, 16)]
@@ -167,7 +167,7 @@ def test_native_webp_matches_pillow(tmp_path):
     """The native webp decoder (codec.cpp + libwebp) must agree with the
     Pillow rung bit-for-bit — lossless, lossy, and alpha-composited — so
     the ladder's answer never depends on which decoder fired."""
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
 
     if not native.webp_available():
         pytest.skip("native codec built without libwebp")
@@ -205,7 +205,7 @@ def test_native_webp_matches_pillow(tmp_path):
 def test_animated_webp_falls_back_to_first_frame(tmp_path):
     """The native decoder refuses animation; the ladder must recover via
     Pillow (first frame), mirroring the GIF behavior."""
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
 
     frames = [Image.fromarray(np.full((8, 8, 3), v, np.uint8))
               for v in (10, 200)]
@@ -247,7 +247,7 @@ def test_native_bmp_matches_pillow():
     import io
     import struct
 
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
 
     if not native.available():
         pytest.skip("native codec unavailable")
@@ -300,7 +300,7 @@ def test_native_bmp_rejects_exotic_variants_to_ladder():
     import io
     import struct
 
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
 
     if not native.available():
         pytest.skip("native codec unavailable")
@@ -345,7 +345,7 @@ def test_native_gif_matches_pillow():
     out-of-palette transparent indices."""
     import io
 
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
 
     if not native.available():
         pytest.skip("native codec unavailable")
@@ -386,7 +386,7 @@ def test_native_gif_rejects_partial_and_corrupt_to_ladder():
     import io
     import struct
 
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
 
     if not native.available():
         pytest.skip("native codec unavailable")
@@ -421,7 +421,7 @@ def test_native_gif_refuses_decompression_bomb():
     MAX_IMAGE_PIXELS bomb policy governs, as it did pre-native."""
     import struct
 
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
 
     if not native.available():
         pytest.skip("native codec unavailable")
@@ -440,7 +440,7 @@ def test_native_decoders_refuse_decompression_bombs(monkeypatch):
     import struct
     import zlib
 
-    from imagestitching_tpu.imgio import native
+    from imagestitching.imgio import native
 
     if not native.available():
         pytest.skip("native codec unavailable")

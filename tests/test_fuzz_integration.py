@@ -9,11 +9,11 @@ import numpy as np
 import pytest
 from PIL import Image
 
-import imagestitching_tpu as ist
-from imagestitching_tpu.config import (MemoryBudget, RuntimeConfig,
+import imagestitching as ist
+from imagestitching.config import (MemoryBudget, RuntimeConfig,
                                        StitchOptions)
-from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching.core import oracle
+from imagestitching.core.layout import ImageSpec, solve
 
 
 def _case(seed):
@@ -46,7 +46,7 @@ def test_full_api_fuzz(seed, tmp_path):
     engine = str(rng.choice(["xla", "auto"]))
     budget_scale = float(rng.choice([1.0, 0.001, 0.0003]))
     cfg = RuntimeConfig(
-        engine=engine, interpret=(engine == "auto"),
+        engine=engine,
         overlap=str(rng.choice(["never", "always"])),
         budget=MemoryBudget(hbm_bytes=max(100_000,
                                           int(2e9 * budget_scale))))
@@ -73,9 +73,9 @@ def test_blit_stream_fuzz(seed, tmp_path):
     """Random pure-blit jobs (equal display sizes per axis) through
     stitch_to_file must take the host-blit-stream path and match the
     oracle bit-exactly."""
-    from imagestitching_tpu import api
-    from imagestitching_tpu.core import geometry
-    from imagestitching_tpu.imgio import codec, native
+    from imagestitching import api
+    from imagestitching.core import geometry
+    from imagestitching.imgio import codec, native
 
     if not native.available():
         pytest.skip("native codec unavailable")

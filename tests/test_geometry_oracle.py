@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from imagestitching_tpu.config import StitchOptions
-from imagestitching_tpu.core import geometry, oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching.config import StitchOptions
+from imagestitching.core import geometry, oracle
+from imagestitching.core.layout import ImageSpec, solve
 
 rng = np.random.default_rng(0)
 

@@ -10,10 +10,10 @@ import os
 
 import numpy as np
 
-from imagestitching_tpu.config import RuntimeConfig, StitchOptions
-from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu.runtime import pipeline
+from imagestitching.config import RuntimeConfig, StitchOptions
+from imagestitching.core import oracle
+from imagestitching.core.layout import ImageSpec, solve
+from imagestitching.runtime import pipeline
 
 _DATA = os.path.join(os.path.dirname(__file__), "data", "golden_v1.npz")
 _SHAPES = [(40, 30, 1), (24, 36, 6), (32, 32, 3), (28, 44, 8)]
@@ -39,6 +39,6 @@ def test_engines_reproduce_golden_within_one():
     imgs, want = _load()
     plan = solve([ImageSpec(w, h, o) for (w, h, o) in _SHAPES],
                  StitchOptions(**_OPTS))
-    for engine, kw in [("xla", {}), ("pallas", {"interpret": True})]:
-        out, _ = pipeline.run(plan, imgs, RuntimeConfig(engine=engine, **kw))
+    for engine in ("xla", "auto"):
+        out, _ = pipeline.run(plan, imgs, RuntimeConfig(engine=engine))
         assert np.abs(out.astype(int) - want.astype(int)).max() <= 1, engine

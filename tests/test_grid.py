@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from imagestitching_tpu import api
-from imagestitching_tpu.config import CanvasLimits, RuntimeConfig, StitchOptions
-from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.grid import plan_grid
-from imagestitching_tpu.core.layout import ImageSpec
+from imagestitching import api
+from imagestitching.config import CanvasLimits, RuntimeConfig, StitchOptions
+from imagestitching.core import oracle
+from imagestitching.core.grid import plan_grid
+from imagestitching.core.layout import ImageSpec
 
 rng = np.random.default_rng(31)
 
@@ -162,7 +162,7 @@ def test_stitch_grid_exif_orientation():
 def test_stitch_grid_under_space_mesh():
     """Grid columns compose with the sharded pipeline unchanged: a space
     mesh shards each column's canvas row-bands across devices."""
-    from imagestitching_tpu.parallel import mesh as pmesh
+    from imagestitching.parallel import mesh as pmesh
     # mixed widths: columns RESAMPLE (equal widths would blit host-side
     # and never touch the mesh)
     imgs = [noise(180, 90), noise(150, 120), noise(160, 100),
@@ -170,7 +170,7 @@ def test_stitch_grid_under_space_mesh():
     opts = StitchOptions(gap=3, background=(5, 5, 5))
     mesh = pmesh.make_mesh((1, 8))              # all devices on space axis
     got = api.stitch_grid(imgs, cols=2, options=opts,
-                          config=RuntimeConfig(mesh=mesh, interpret=True))
+                          config=RuntimeConfig(mesh=mesh))
     specs = [ImageSpec(a.shape[1], a.shape[0]) for a in imgs]
     gplan = plan_grid(specs, 2, opts)
     want = grid_oracle(gplan, imgs)
@@ -184,8 +184,8 @@ def test_http_grid():
     import json
     import urllib.request
     from PIL import Image
-    from imagestitching_tpu.imgio import codec
-    from imagestitching_tpu.serve.http import StitchHTTPServer
+    from imagestitching.imgio import codec
+    from imagestitching.serve.http import StitchHTTPServer
 
     imgs = [noise(50, 40) for _ in range(4)]
     payload = {
@@ -193,7 +193,7 @@ def test_http_grid():
                    for a in imgs],
         "grid_cols": 2, "gap": 0,
     }
-    with StitchHTTPServer(port=0, engine="xla", max_wait_s=0.005) as srv:
+    with StitchHTTPServer(port=0, max_wait_s=0.005) as srv:
         req = urllib.request.Request(
             f"http://127.0.0.1:{srv.port}/stitch",
             data=json.dumps(payload).encode(),
@@ -234,7 +234,7 @@ def test_stitch_grid_aggregates_stage_wait_max(monkeypatch):
     # r4s7 review: stage_wait_max_s stayed 0.0 in grid metrics even when
     # columns reported per-image stalls (summed fields were aggregated,
     # the max field was not)
-    from imagestitching_tpu.runtime import pipeline as _pipeline
+    from imagestitching.runtime import pipeline as _pipeline
     real_run = _pipeline.run
     vals = iter([0.25, 0.75, 0.5])
 
@@ -259,9 +259,9 @@ def test_http_grid_inherits_server_config_and_admission():
     import urllib.error
     import urllib.request
     from PIL import Image
-    from imagestitching_tpu.imgio import codec
-    from imagestitching_tpu.serve.http import StitchHTTPServer
-    from imagestitching_tpu.serve.server import StitchServer
+    from imagestitching.imgio import codec
+    from imagestitching.serve.http import StitchHTTPServer
+    from imagestitching.serve.server import StitchServer
 
     imgs = [noise(120, 100) for _ in range(4)]
     payload = {
@@ -278,14 +278,14 @@ def test_http_grid_inherits_server_config_and_admission():
         with urllib.request.urlopen(req, timeout=120) as r:
             return np.asarray(Image.open(io.BytesIO(r.read())))
 
-    capped = StitchServer(engine="xla", config=RuntimeConfig(
+    capped = StitchServer(config=RuntimeConfig(
         limits=CanvasLimits(max_side=64)))
     with StitchHTTPServer(port=0, server=capped) as srv:
         out = post(srv.port)
         assert max(out.shape[:2]) <= 64
     capped.close()
 
-    full = StitchServer(engine="xla", max_queue=0)
+    full = StitchServer(max_queue=0)
     with StitchHTTPServer(port=0, server=full) as srv:
         with pytest.raises(urllib.error.HTTPError) as ei:
             post(srv.port)
@@ -305,7 +305,7 @@ def test_cli_grid(tmp_path):
         paths.append(str(f))
     out = tmp_path / "grid.png"
     r = subprocess.run(
-        [sys.executable, "-m", "imagestitching_tpu.cli", *paths,
+        [sys.executable, "-m", "imagestitching.cli", *paths,
          "-o", str(out), "--grid-cols", "2", "--gap", "0", "--json"],
         capture_output=True, text=True,
         env={"PYTHONPATH": ".", "PATH": "/usr/bin:/bin",

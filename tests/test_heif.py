@@ -7,9 +7,9 @@ The reference handles HEIC only by lossy JPEG transcode
 import numpy as np
 import pytest
 
-import imagestitching_tpu as ist
-from imagestitching_tpu.config import RuntimeConfig
-from imagestitching_tpu.imgio import codec, heif
+import imagestitching as ist
+from imagestitching.config import RuntimeConfig
+from imagestitching.imgio import codec, heif
 
 pytestmark = pytest.mark.skipif(not heif.available(),
                                 reason="libheif not available")

@@ -8,18 +8,18 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from imagestitching_tpu.config import StitchOptions
-from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu.imgio import codec
-from imagestitching_tpu.serve.http import StitchHTTPServer
+from imagestitching.config import StitchOptions
+from imagestitching.core import oracle
+from imagestitching.core.layout import ImageSpec, solve
+from imagestitching.imgio import codec
+from imagestitching.serve.http import StitchHTTPServer
 
 rng = np.random.default_rng(41)
 
 
 @pytest.fixture(scope="module")
 def srv():
-    with StitchHTTPServer(port=0, engine="xla", max_wait_s=0.005) as s:
+    with StitchHTTPServer(port=0, max_wait_s=0.005) as s:
         yield s
 
 
@@ -139,7 +139,7 @@ def test_stitch_json_array_background(srv):
 
 
 def test_request_size_limit():
-    with StitchHTTPServer(port=0, engine="xla",
+    with StitchHTTPServer(port=0,
                           max_request_bytes=1000) as small:
         req = urllib.request.Request(
             f"http://{small.host}:{small.port}/stitch",
@@ -151,7 +151,7 @@ def test_request_size_limit():
 
 
 def test_overload_maps_to_503():
-    with StitchHTTPServer(port=0, engine="xla", max_queue=0) as tiny:
+    with StitchHTTPServer(port=0, max_queue=0) as tiny:
         imgs = [rng.integers(0, 256, (8, 8, 3), np.uint8)]
         payload = {"images": [base64.b64encode(_png_bytes(a)).decode()
                               for a in imgs]}
@@ -168,12 +168,12 @@ def test_overload_maps_to_503():
 def test_overloaded_server_rejects_before_decode(monkeypatch):
     # r4s7: an overloaded server must not pay per-request decode work just
     # to reject — stitch_blobs probes capacity before touching the blobs
-    from imagestitching_tpu.imgio import codec as _codec
+    from imagestitching.imgio import codec as _codec
 
     def boom(*a, **k):
         raise AssertionError("decode ran on a rejected request")
 
-    with StitchHTTPServer(port=0, engine="xla", max_queue=0) as tiny:
+    with StitchHTTPServer(port=0, max_queue=0) as tiny:
         monkeypatch.setattr(_codec, "decode", boom)
         imgs = [rng.integers(0, 256, (8, 8, 3), np.uint8)]
         payload = {"images": [base64.b64encode(_png_bytes(a)).decode()
@@ -240,11 +240,9 @@ def test_internal_failure_maps_to_500(srv, monkeypatch):
 
 
 def test_status_mapping():
-    from imagestitching_tpu.ops.pallas_resize import Infeasible
-    from imagestitching_tpu.serve.http import BadImage, _status_for
+    from imagestitching.serve.http import BadImage, _status_for
     assert _status_for(ValueError("x")) == 400
     assert _status_for(BadImage("x")) == 400
-    assert _status_for(Infeasible("no tiles")) == 400
     assert _status_for(TimeoutError("slow")) == 504      # job deadline
     import concurrent.futures as cf
     assert _status_for(cf.TimeoutError()) == 504
@@ -261,7 +259,7 @@ def test_http_warmup(srv):
     with urllib.request.urlopen(req, timeout=60) as r:
         assert r.status == 200
         info = json.loads(r.read())
-    assert info["engine"] == "xla" and info["batches"] == [1]
+    assert info == {"batches": [1], "signature_cached": True}
     assert srv.server.stats()["warmups"] >= 1
 
 

@@ -10,8 +10,8 @@ import itertools
 
 import pytest
 
-from imagestitching_tpu.config import CanvasLimits, StitchOptions
-from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching.config import CanvasLimits, StitchOptions
+from imagestitching.core.layout import ImageSpec, solve
 
 NO_SS = CanvasLimits(max_supersample=1.0)
 

@@ -19,8 +19,8 @@ sys.path.insert(0, os.path.join(
 
 from layout_referee import display_dims, referee_layout  # noqa: E402
 
-from imagestitching_tpu.config import CanvasLimits, StitchOptions
-from imagestitching_tpu.core.layout import ImageSpec, solve
+from imagestitching.config import CanvasLimits, StitchOptions
+from imagestitching.core.layout import ImageSpec, solve
 
 
 def test_deviation_8_guard_loop_break_edge():
@@ -136,7 +136,7 @@ def test_js_round_exact_spec_semantics():
     have hidden that divergence class from the fuzz (r5 review)."""
     from layout_referee import _math_round
 
-    from imagestitching_tpu.core.layout import _js_round
+    from imagestitching.core.layout import _js_round
 
     below_half = 0.49999999999999994          # largest double < 0.5
     assert below_half < 0.5

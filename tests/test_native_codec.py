@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
-from imagestitching_tpu.imgio import codec, native
+from imagestitching.imgio import codec, native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native codec not built")

@@ -3,7 +3,7 @@ utils/canvas.js:124-128, pages/index/index.js:1593-1609)."""
 
 import numpy as np
 
-from imagestitching_tpu import api
+from imagestitching import api
 
 rng = np.random.default_rng(29)
 

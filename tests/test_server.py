@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from imagestitching_tpu.config import StitchOptions
-from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu.serve.server import StitchServer
+from imagestitching.config import StitchOptions
+from imagestitching.core import oracle
+from imagestitching.core.layout import ImageSpec, solve
+from imagestitching.serve.server import StitchServer
 
 rng = np.random.default_rng(21)
 
@@ -16,7 +16,7 @@ def rand_img(w, h):
 
 
 def test_server_single_job():
-    with StitchServer(max_batch=8, max_wait_s=0.002, engine="xla") as s:
+    with StitchServer(max_batch=8, max_wait_s=0.002) as s:
         imgs = [rand_img(32, 24), rand_img(24, 24)]
         out = s.submit(imgs, StitchOptions(gap=2)).result(timeout=60)
         plan = solve([ImageSpec(32, 24), ImageSpec(24, 24)],
@@ -26,7 +26,7 @@ def test_server_single_job():
 
 
 def test_server_batches_same_signature():
-    with StitchServer(max_batch=4, max_wait_s=0.01, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=0.01) as s:
         jobs = []
         for _ in range(8):
             imgs = [rand_img(40, 20), rand_img(20, 30)]
@@ -43,7 +43,7 @@ def test_server_batches_same_signature():
 
 
 def test_server_mixed_signatures():
-    with StitchServer(max_batch=8, max_wait_s=0.005, engine="xla") as s:
+    with StitchServer(max_batch=8, max_wait_s=0.005) as s:
         a = [rand_img(16, 16)]
         b = [rand_img(24, 16), rand_img(24, 8)]
         fa = s.submit(a)
@@ -66,7 +66,7 @@ def test_server_background_not_shared_across_jobs():
     specs = [ImageSpec(20, 12), ImageSpec(20, 10)]
     assert (solve(specs, o_black).signature()
             != solve(specs, o_red).signature())
-    with StitchServer(max_batch=8, max_wait_s=0.01, engine="xla") as s:
+    with StitchServer(max_batch=8, max_wait_s=0.01) as s:
         imgs1 = [rand_img(20, 12), rand_img(20, 10)]
         imgs2 = [rand_img(20, 12), rand_img(20, 10)]
         f1 = s.submit(imgs1, o_black)
@@ -81,7 +81,7 @@ def test_server_background_not_shared_across_jobs():
 
 
 def test_server_failure_isolation():
-    with StitchServer(max_batch=4, max_wait_s=0.005, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=0.005) as s:
         good = [rand_img(16, 16)]
         futs = [s.submit(good) for _ in range(3)]
         # poison: submit images that mismatch their own plan by mutating
@@ -94,7 +94,7 @@ def test_server_failure_isolation():
 
 
 def test_server_close_flushes():
-    s = StitchServer(max_batch=64, max_wait_s=30.0, engine="xla")
+    s = StitchServer(max_batch=64, max_wait_s=30.0)
     imgs = [rand_img(16, 16)]
     fut = s.submit(imgs)
     s.close()
@@ -103,9 +103,8 @@ def test_server_close_flushes():
         s.submit(imgs)
 
 
-def test_server_pallas_engine_interpret():
-    with StitchServer(max_batch=4, max_wait_s=0.005, engine="pallas",
-                      interpret=True) as s:
+def test_server_resample_jobs_match_oracle():
+    with StitchServer(max_batch=4, max_wait_s=0.005) as s:
         imgs_a = [rand_img(40, 30), rand_img(30, 20)]
         imgs_b = [rand_img(40, 30), rand_img(30, 20)]
         fa, fb = s.submit(imgs_a), s.submit(imgs_b)
@@ -117,13 +116,10 @@ def test_server_pallas_engine_interpret():
 
 
 def test_server_mesh_with_default_engine():
-    """StitchServer(use_mesh=True) with the explicit pallas engine (what
-    engine="auto" resolves to for feasible signatures on TPU) on the
-    8-device CPU mesh: the shard_map path must serve real jobs with parity
-    (VERDICT r2 #8 — this combination previously appeared in no test)."""
-    with StitchServer(max_batch=8, max_wait_s=0.01, engine="pallas",
-                      use_mesh=True, interpret=True) as s:
-        # mixed sizes -> the resample kernel, not the blit fast path
+    """StitchServer(use_mesh=True) on the 8-device CPU mesh: the jobs-
+    sharded path must serve real jobs with parity (VERDICT r2 #8)."""
+    with StitchServer(max_batch=8, max_wait_s=0.01, use_mesh=True) as s:
+        # mixed sizes -> real resampling, not only blits
         jobs = []
         for _ in range(9):              # not a jobs-axis multiple: pad path
             imgs = [rand_img(48, 32), rand_img(32, 40)]
@@ -140,10 +136,10 @@ def test_server_mesh_with_default_engine():
 def test_server_budget_caps_batch_proactively():
     """VERDICT r1 #7: a large batch of big canvases splits under the HBM
     budget BEFORE launch (no OOM-driven bisection involved)."""
-    from imagestitching_tpu.config import MemoryBudget, RuntimeConfig
-    from imagestitching_tpu.core.layout import ImageSpec, solve
-    from imagestitching_tpu.runtime import tiler
-    from imagestitching_tpu.runtime.logger import get_logger
+    from imagestitching.config import MemoryBudget, RuntimeConfig
+    from imagestitching.core.layout import ImageSpec, solve
+    from imagestitching.runtime import tiler
+    from imagestitching.runtime.logger import get_logger
 
     specs = [ImageSpec(64, 48), ImageSpec(48, 64)]
     plan = solve(specs, StitchOptions(gap=2))
@@ -151,7 +147,7 @@ def test_server_budget_caps_batch_proactively():
     # budget fits ~3 jobs per launch
     cfg = RuntimeConfig(budget=MemoryBudget(hbm_bytes=3 * per_job + 1))
     get_logger().clear()
-    with StitchServer(max_batch=64, max_wait_s=0.05, engine="xla",
+    with StitchServer(max_batch=64, max_wait_s=0.05,
                       config=cfg) as s:
         jobs = []
         for _ in range(10):
@@ -171,7 +167,7 @@ def test_server_budget_caps_batch_proactively():
 def test_server_queue_backpressure():
     # bounded admission by PENDING count (not raw queue depth — the batcher
     # drains the queue into buckets immediately): the 4th submit is rejected
-    s = StitchServer(max_batch=8, max_wait_s=30.0, engine="xla", max_queue=3)
+    s = StitchServer(max_batch=8, max_wait_s=30.0, max_queue=3)
     try:
         jobs = []
         for _ in range(3):
@@ -200,7 +196,7 @@ def test_server_randomized_stress():
         imgs = [r.integers(0, 256, (h, w, 3), np.uint8)
                 for (w, h) in shapes]
         jobs.append((imgs, shapes, gap))
-    with StitchServer(max_batch=8, max_wait_s=0.01, engine="xla") as s:
+    with StitchServer(max_batch=8, max_wait_s=0.01) as s:
         futs = [s.submit(imgs, StitchOptions(gap=gap))
                 for imgs, _, gap in jobs]
         outs = [f.result(timeout=300) for f in futs]
@@ -217,7 +213,7 @@ def test_server_signature_lru_bounded():
     """A long-lived server fed diverse geometry must not accrete compiled
     executables forever: the signature LRU keeps at most max_signatures
     entries, and an evicted signature recompiles correctly on return."""
-    with StitchServer(max_batch=2, max_wait_s=0.0, engine="xla",
+    with StitchServer(max_batch=2, max_wait_s=0.0,
                       max_signatures=2) as s:
         first = [rand_img(10, 10)]
         assert s.submit(first).result(timeout=60).shape == (10, 10, 3)
@@ -246,7 +242,7 @@ def test_server_cancelled_future_does_not_poison_batch():
     # from the batch-FULL trigger (4th submit below), never the deadline —
     # a deadline flush racing the cancel() would set_result first and make
     # cancel() legitimately return False (not the behavior under test)
-    with StitchServer(max_batch=4, max_wait_s=5.0, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=5.0) as s:
         imgs = [rand_img(20, 12)]
         f_cancel = s.submit(imgs)
         assert f_cancel.cancel()            # still queued: cancel wins
@@ -266,37 +262,22 @@ def test_server_cancelled_future_does_not_poison_batch():
         assert st["failed"] == 0
 
 
-def test_server_engine_auto_demotes_infeasible_signature():
-    """engine="auto" (the default) resolves per signature: a job whose
-    downscale needs a filter window beyond the kernel's 64-tap bound
-    (4->64 min-mode lanczos3: K=97) demotes to the XLA gather engine and
-    SUCCEEDS — the serving analog of pipeline engine="auto" (the http
-    soak caught the old default surfacing this as a client 400)."""
+def test_server_serves_more_than_64_tap_signature():
+    """A downscale whose filter window needs more than 64 taps (4->64
+    min-mode lanczos3: K=97) is served like any other job."""
     opts = StitchOptions(mode="min", filter="lanczos3", supersample=False)
     imgs = [rand_img(4, 4), rand_img(64, 64)]
     specs = [ImageSpec(4, 4), ImageSpec(64, 64)]
-    with StitchServer(max_batch=2, max_wait_s=0.0, engine="auto",
-                      interpret=True) as s:
+    with StitchServer(max_batch=2, max_wait_s=0.0) as s:
         out = s.submit(imgs, opts).result(timeout=120)
         want = oracle.stitch(solve(specs, opts), imgs)
         assert out.shape == want.shape
         assert np.abs(out.astype(int) - want.astype(int)).max() <= 1
         assert s.stats()["failed"] == 0
-    # a feasible signature on the same auto server still picks the kernel
-    # (engine resolution is per signature, not global): covered implicitly
-    # by the pallas-default tests; here assert the EXPLICIT engine contract
-    with StitchServer(max_batch=2, max_wait_s=0.0, engine="pallas",
-                      interpret=True) as s:
-        fut = s.submit(imgs, opts)
-        with pytest.raises(NotImplementedError):
-            fut.result(timeout=120)
-        assert s.stats()["failed"] == 1
 
 
 def test_server_bare_default_works_on_cpu_backend():
-    """StitchServer() with every default on a CPU backend resolves
-    engine="auto" to the gather engine (Mosaic only lowers on TPU) — the
-    old pallas default failed every job at first flush here."""
+    """StitchServer() with every default serves jobs on a CPU backend."""
     with StitchServer(max_batch=4, max_wait_s=0.0) as s:
         imgs = [rand_img(32, 24), rand_img(30, 20)]
         out = s.submit(imgs, StitchOptions(gap=2)).result(timeout=60)
@@ -307,78 +288,34 @@ def test_server_bare_default_works_on_cpu_backend():
         assert s.stats()["failed"] == 0
 
 
-def test_server_auto_engine_empty_span_placement():
-    """Regression: a min-mode plan where one source's rounded draw height
-    is 0 (the reference draws it as a no-op, pages/index/index.js:1526-1554)
-    resolved to "pallas" under engine="auto" — which skips empty spans —
-    but BatchedStitch's eager feasibility loop did not skip them and
-    raised Infeasible("empty dest rect"), failing a job the single-job
-    pipeline runs fine.  Both now route through check_plan_feasible."""
+def test_server_empty_span_placement():
+    """A min-mode plan where one source's rounded draw height is 0 (the
+    reference draws it as a no-op, pages/index/index.js:1526-1554) is
+    served like the single-job pipeline serves it."""
     specs = [ImageSpec(33, 4), ImageSpec(4, 4)]
     opts = StitchOptions(direction="vertical", mode="min")
     plan = solve(specs, opts)
     assert any(p.row_span[0] == p.row_span[1] for p in plan.placements), \
         "expected a zero-height placement in this reproducer"
     imgs = [rand_img(33, 4), rand_img(4, 4)]
-    with StitchServer(max_batch=2, max_wait_s=0.002, engine="auto",
-                      interpret=True) as s:
+    with StitchServer(max_batch=2, max_wait_s=0.002) as s:
         out = s.submit(imgs, opts).result(timeout=120)
         assert s.stats()["failed"] == 0
     want = oracle.stitch(plan, imgs)
     assert np.abs(out.astype(int) - want.astype(int)).max() <= 1
 
 
-def test_server_engine_resolved_once_per_signature(monkeypatch):
-    """engine="auto" resolution (full tap + tile-search rebuild) runs once
-    per signature, not once per batch size."""
-    calls = []
-    s = StitchServer(max_batch=8, max_wait_s=30.0, engine="auto",
-                     interpret=True)
+def test_server_compiles_once_per_batch_size():
+    """One BatchedStitch per (signature, padded batch, channels): a repeat
+    lookup reuses it, another batch size builds its own."""
+    s = StitchServer(max_batch=8, max_wait_s=30.0)
     try:
-        real = s._resolve_engine
-
-        def counting(plan):
-            calls.append(plan.signature())
-            return real(plan)
-
-        monkeypatch.setattr(s, "_resolve_engine", counting)
         plan = solve([ImageSpec(24, 16), ImageSpec(16, 12)], StitchOptions())
-        s._get_compiled(plan, 1)
-        s._get_compiled(plan, 2)
-        s._get_compiled(plan, 4)
-        assert len(calls) == 1
-    finally:
-        s.close()
-
-
-def test_server_logs_each_demoted_signature(monkeypatch):
-    """Every infeasible signature logs its demotion once — a bare once-key
-    recorded only the FIRST demotion in the server's lifetime (ADVICE r3)."""
-    from imagestitching_tpu.ops import pallas_resize
-
-    s = StitchServer(max_batch=2, max_wait_s=0.01, engine="auto",
-                     interpret=True)
-    try:
-        monkeypatch.setattr(
-            pallas_resize, "check_plan_feasible",
-            lambda plan: (_ for _ in ()).throw(
-                NotImplementedError("forced infeasible")))
-        import imagestitching_tpu.runtime.pipeline as pl
-        monkeypatch.setattr(pl, "_kernel_backend_ok", lambda *a: True)
-        # the logger is process-global: count only THIS test's events (ring
-        # may carry demotions from earlier tests) and use sizes no other
-        # test demotes (the once-dedup is logger-lifetime)
-        n0 = len(s._log.ring())
-        plan_a = solve([ImageSpec(23, 17)], StitchOptions())
-        plan_b = solve([ImageSpec(31, 19)], StitchOptions())
-        assert s._resolve_engine(plan_a) == "xla"
-        assert s._resolve_engine(plan_b) == "xla"
-        # repeat demotion of the SAME signature stays deduped
-        assert s._resolve_engine(plan_a) == "xla"
-        tags = [r["tag"] for r in s._log.ring()[n0:]
-                if r["tag"].startswith("serve.engine_demoted")]
-        assert len(tags) == 2
-        assert len(set(tags)) == 2
+        one = s._get_compiled(plan, 1)
+        assert s._get_compiled(plan, 1) is one
+        two = s._get_compiled(plan, 2)
+        assert two is not one and two.batch_size == 2
+        assert set(s._compiled[plan.signature()]) == {(1, 3), (2, 3)}
     finally:
         s.close()
 
@@ -387,14 +324,14 @@ def test_server_overload_rejects_before_merge_scoring(monkeypatch):
     # r4s7 review: admission must happen BEFORE the expensive per-job work
     # (overlap scoring, layout solve) — a full server used to pay the whole
     # SSD-scoring pass per rejected request
-    from imagestitching_tpu.ops import overlap as _overlap
-    from imagestitching_tpu.serve.server import ServerOverloaded
+    from imagestitching.ops import overlap as _overlap
+    from imagestitching.serve.server import ServerOverloaded
 
     def boom(*a, **k):
         raise AssertionError("merge_arrays ran on a rejected submit")
 
     monkeypatch.setattr(_overlap, "merge_arrays", boom)
-    s = StitchServer(max_batch=8, max_wait_s=30.0, engine="xla", max_queue=0)
+    s = StitchServer(max_batch=8, max_wait_s=30.0, max_queue=0)
     try:
         with pytest.raises(ServerOverloaded):
             s.submit([rand_img(16, 24), rand_img(16, 24)],
@@ -407,8 +344,8 @@ def test_server_overload_rejects_before_merge_scoring(monkeypatch):
 def test_server_admission_slots_shared_with_out_of_band_jobs():
     # admission() (the HTTP grid path) holds a real queue slot: batch
     # submits see the occupancy, and the slot is returned on exit
-    from imagestitching_tpu.serve.server import ServerOverloaded
-    s = StitchServer(max_batch=8, max_wait_s=30.0, engine="xla", max_queue=1)
+    from imagestitching.serve.server import ServerOverloaded
+    s = StitchServer(max_batch=8, max_wait_s=30.0, max_queue=1)
     try:
         with s.admission():
             assert s.stats()["pending"] == 1
@@ -425,8 +362,8 @@ def test_server_admission_slots_shared_with_out_of_band_jobs():
 def test_server_config_limits_are_applied():
     # r4s7 review: RuntimeConfig.limits was a dead field — submit() now
     # defaults to it when no explicit limits argument is given
-    from imagestitching_tpu.config import CanvasLimits, RuntimeConfig
-    with StitchServer(max_batch=4, max_wait_s=0.005, engine="xla",
+    from imagestitching.config import CanvasLimits, RuntimeConfig
+    with StitchServer(max_batch=4, max_wait_s=0.005,
                       config=RuntimeConfig(
                           limits=CanvasLimits(max_side=40))) as s:
         out = s.submit([rand_img(64, 80)]).result(timeout=60)
@@ -445,7 +382,7 @@ def test_server_rgba_flattens_like_decode():
     instead of dying at trace time with a concat-shape TypeError."""
     imgs = [rng.integers(0, 256, (24, 32, 4), np.uint8),
             rng.integers(0, 256, (20, 28, 4), np.uint8)]
-    with StitchServer(max_batch=4, max_wait_s=0.002, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=0.002) as s:
         out = s.submit(imgs, StitchOptions(gap=2)).result(timeout=60)
     plan = solve([ImageSpec(32, 24), ImageSpec(28, 20)],
                  StitchOptions(gap=2))
@@ -457,7 +394,7 @@ def test_server_rgba_flattens_like_decode():
 def test_server_mixed_gray_rgb_promotes():
     imgs = [rng.integers(0, 256, (24, 32), np.uint8),
             rng.integers(0, 256, (20, 28, 3), np.uint8)]
-    with StitchServer(max_batch=4, max_wait_s=0.002, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=0.002) as s:
         out = s.submit(imgs, StitchOptions(gap=2)).result(timeout=60)
     plan = solve([ImageSpec(32, 24), ImageSpec(28, 20)],
                  StitchOptions(gap=2))
@@ -472,7 +409,7 @@ def test_server_gray_and_rgb_same_geometry_bucket_separately():
     separate programs (np.stack of mixed channels would die mid-flush)."""
     g = [rng.integers(0, 256, (24, 32, 1), np.uint8)]
     c = [rng.integers(0, 256, (24, 32, 3), np.uint8)]
-    with StitchServer(max_batch=8, max_wait_s=0.05, engine="xla") as s:
+    with StitchServer(max_batch=8, max_wait_s=0.05) as s:
         fg, fc = s.submit(g), s.submit(c)
         og, oc = fg.result(timeout=60), fc.result(timeout=60)
     assert og.shape == (24, 32, 1)
@@ -482,17 +419,16 @@ def test_server_gray_and_rgb_same_geometry_bucket_separately():
 
 
 def test_warmup_precompiles_then_serves():
-    with StitchServer(max_batch=8, max_wait_s=0.002, engine="xla") as s:
+    with StitchServer(max_batch=8, max_wait_s=0.002) as s:
         info = s.warmup([(24, 32), (20, 28)], StitchOptions(gap=2),
                         batch_sizes=(1, 5))
         # 5 pads to the same pow-2 bucket a real 5-job flush selects
-        assert info == {"engine": "xla", "batches": [1, 8],
-                        "signature_cached": True}
+        assert info == {"batches": [1, 8], "signature_cached": True}
         assert s.stats()["warmups"] == 2
         assert s.stats()["signatures"] == 1
         # the warmed signature holds exactly the padded (batch, channels)
         # executables a real flush will look up
-        (_, per_size), = s._compiled.values()
+        per_size, = s._compiled.values()
         assert set(per_size) == {(1, 3), (8, 3)}
         imgs = [rng.integers(0, 256, (24, 32, 3), np.uint8),
                 rng.integers(0, 256, (20, 28, 3), np.uint8)]
@@ -502,12 +438,12 @@ def test_warmup_precompiles_then_serves():
         want = oracle.stitch(plan, imgs)
         assert np.abs(out.astype(int) - want.astype(int)).max() <= 1
         # the real 1-job flush reused the warmed executable
-        (_, per_size), = s._compiled.values()
+        per_size, = s._compiled.values()
         assert set(per_size) == {(1, 3), (8, 3)}
 
 
 def test_warmup_validates_shapes():
-    with StitchServer(max_batch=4, max_wait_s=0.002, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=0.002) as s:
         with pytest.raises(ValueError, match="warmup shape"):
             s.warmup([(24,)])
         with pytest.raises(ValueError, match="channels"):
@@ -518,11 +454,10 @@ def test_warmup_validates_shapes():
 
 
 def test_warmup_under_jobs_mesh():
-    """warm() must execute through the shard_map path too: the padded
+    """warm() must execute through the jobs-sharded path too: the padded
     batch rounds to a jobs-axis multiple and the zero-filled execution
     runs per-device shards, same as a real mesh flush."""
-    with StitchServer(max_batch=16, max_wait_s=0.002, engine="pallas",
-                      interpret=True, use_mesh=True) as s:
+    with StitchServer(max_batch=16, max_wait_s=0.002, use_mesh=True) as s:
         unit = s.mesh.shape["jobs"]
         info = s.warmup([(24, 32), (20, 28)], StitchOptions(gap=2),
                         batch_sizes=(1, 3))
@@ -541,10 +476,10 @@ def test_submit_rejects_before_paying_normalization(monkeypatch):
     """Backpressure must fire BEFORE the O(pixels) channel normalization
     (review r4s11: the flatten ran ahead of _admit, so an overloaded
     server paid full-image compositing per rejected request)."""
-    import imagestitching_tpu.api as api_mod
-    from imagestitching_tpu.serve.server import ServerOverloaded
+    import imagestitching.api as api_mod
+    from imagestitching.serve.server import ServerOverloaded
 
-    s = StitchServer(max_batch=2, max_wait_s=30.0, engine="xla",
+    s = StitchServer(max_batch=2, max_wait_s=30.0,
                      max_queue=1)
     try:
         with s.admission():           # hold the only slot
@@ -561,7 +496,7 @@ def test_warmup_clamps_to_mesh_rounded_cap(monkeypatch):
     """warmup must clamp against the same mesh-rounded cap _flush splits
     at — the raw cap could warm a batch size no real flush ever selects
     (and execute a zero batch above the HBM bound)."""
-    with StitchServer(max_batch=16, max_wait_s=30.0, engine="xla",
+    with StitchServer(max_batch=16, max_wait_s=30.0,
                       use_mesh=True) as s:
         unit = s.mesh.shape["jobs"]            # 8 on the virtual CPU mesh
         assert unit == 8
@@ -572,7 +507,7 @@ def test_warmup_clamps_to_mesh_rounded_cap(monkeypatch):
 
 
 def test_warmup_rejects_bad_batch_sizes():
-    with StitchServer(max_batch=4, max_wait_s=0.002, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=0.002) as s:
         with pytest.raises(ValueError, match="non-empty"):
             s.warmup([(16, 16)], batch_sizes=())
         with pytest.raises(ValueError, match="batch_sizes"):
@@ -590,7 +525,7 @@ def test_server_concurrent_clients_with_cancels():
     import threading
     from concurrent.futures import wait as fwait
 
-    with StitchServer(max_batch=4, max_wait_s=0.002, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=0.002) as s:
         lock = threading.Lock()
         jobs = []
 
@@ -634,7 +569,7 @@ def test_server_latency_metrics():
     flush-start, what a client pays for batching) and flush_s (flush wall
     incl. executable lookup, so cold-compile spikes are visible). Warmup
     batches must not pollute them."""
-    with StitchServer(max_batch=4, max_wait_s=0.002, engine="xla") as s:
+    with StitchServer(max_batch=4, max_wait_s=0.002) as s:
         s.warmup([(16, 16)], batch_sizes=(4,))
         st = s.stats()
         assert st["flush_s"] == 0.0 and st["queue_wait_s"] == 0.0

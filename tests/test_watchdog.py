@@ -13,10 +13,10 @@ import numpy as np
 import pytest
 from PIL import Image
 
-import imagestitching_tpu as ist
-from imagestitching_tpu import api
-from imagestitching_tpu.config import RuntimeConfig
-from imagestitching_tpu.runtime import decoding
+import imagestitching as ist
+from imagestitching import api
+from imagestitching.config import RuntimeConfig
+from imagestitching.runtime import decoding
 
 rng = np.random.default_rng(21)
 

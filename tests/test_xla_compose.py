@@ -7,10 +7,10 @@ take/matmul formulations.  Contract: uint8 outputs agree within 1 step.
 import numpy as np
 import pytest
 
-from imagestitching_tpu.config import CanvasLimits, StitchOptions
-from imagestitching_tpu.core import oracle
-from imagestitching_tpu.core.layout import ImageSpec, solve
-from imagestitching_tpu.ops import xla_compose
+from imagestitching.config import CanvasLimits, StitchOptions
+from imagestitching.core import oracle
+from imagestitching.core.layout import ImageSpec, solve
+from imagestitching.ops import xla_compose
 
 rng = np.random.default_rng(42)
 
@@ -136,8 +136,10 @@ def test_shape_mismatch_raises():
 
 
 def test_lanczos3_filter_all_engines_match_oracle():
-    """Lanczos3 rides the same K-tap machinery as every other filter."""
-    from imagestitching_tpu.ops import pallas_resize
+    """Lanczos3 rides the same K-tap machinery as every other filter, in
+    the resident program and the streamed per-image updates alike."""
+    from imagestitching.config import RuntimeConfig
+    from imagestitching.runtime import pipeline
 
     specs = [ImageSpec(97, 64), ImageSpec(48, 80, orientation=6)]
     imgs = [rng.integers(0, 256, (64, 97, 3), np.uint8),
@@ -147,8 +149,9 @@ def test_lanczos3_filter_all_engines_match_oracle():
     want = oracle.stitch(plan, imgs)
     got_xla = xla_compose.stitch(plan, imgs)
     assert np.abs(got_xla.astype(int) - want.astype(int)).max() <= 1
-    got_k = pallas_resize.stitch(plan, imgs, interpret=True)
-    assert np.abs(got_k.astype(int) - want.astype(int)).max() <= 1
+    got_s = pipeline._run_streamed(plan, imgs, 3, RuntimeConfig(),
+                                   lambda *a: None)
+    assert np.abs(got_s.astype(int) - want.astype(int)).max() <= 1
 
 
 def test_lanczos3_constant_image_stays_constant():
